@@ -1,4 +1,4 @@
-"""hipace_tpu: a TPU-native quasi-static PIC framework.
+"""hipace_tpu: a JAX quasi-static PIC framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of HiPACE++
 (plasma wakefield acceleration, quasi-static PIC): the head-to-tail zeta

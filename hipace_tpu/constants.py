@@ -1,6 +1,6 @@
 """Physical constants in SI and normalized unit systems.
 
-TPU-native re-implementation of the unit handling in HiPACE++
+A JAX re-implementation of the unit handling in HiPACE++
 (ref: /root/reference/src/utils/Constants.H:16-80). The reference switches a
 PhysConst struct at runtime between CODATA-2018 SI values and all-ones
 normalized units; we do the same with a frozen dataclass that is hashable so

@@ -1,6 +1,6 @@
 """In-situ reduced diagnostics: per-slice weighted moments.
 
-TPU-native equivalent of the reference's high-frequency observability path
+JAX equivalent of the reference's high-frequency observability path
 (ref: /root/reference/src/utils/InsituUtil.H; Fields.cpp:1288-1348;
 BeamParticleContainer.cpp:476-594; PlasmaParticleContainer.cpp:443-505):
 cheap per-slice moments computed inside the zeta scan, written per step as a

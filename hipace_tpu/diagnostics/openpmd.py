@@ -20,11 +20,6 @@ import os
 
 import numpy as np
 
-try:
-    import h5py
-except ImportError:  # pragma: no cover
-    h5py = None
-
 
 class OpenPMDWriter:
     def __init__(self, file_prefix: str = "diags/hdf5",
@@ -39,6 +34,14 @@ class OpenPMDWriter:
                 "available in this environment; use h5 or json")
         if backend not in ("h5", "json"):
             raise ValueError(f"unknown openpmd_backend {backend}")
+        if backend == "h5":
+            try:
+                import h5py  # noqa: F401
+            except ImportError:
+                raise RuntimeError(
+                    "hipace.openpmd_backend=h5 needs the h5py package, "
+                    "which is not installed; install it or set "
+                    "hipace.openpmd_backend=json") from None
         self.backend = backend
         os.makedirs(file_prefix, exist_ok=True)
 
@@ -81,8 +84,7 @@ class OpenPMDWriter:
 
     def _write_h5(self, it, time, dt, fields, geom, beams, field_geom,
                   field_meta):
-        if h5py is None:
-            raise RuntimeError("h5py not available")
+        import h5py
         fg = field_geom or geom
         field_meta = field_meta or {}
         with h5py.File(self._path(it), "w") as f:
@@ -212,6 +214,7 @@ def read_field(path: str, it: int, name: str):
         for p in name.split("/"):
             d = d[p]
         return np.array(d["data"])
+    import h5py
     with h5py.File(path, "r") as f:
         return np.array(f[f"data/{it}/fields/{name}"])
 
@@ -230,6 +233,7 @@ def read_beam(path: str, it: int, beam: str):
                "uy": np.array(gp["momentum"]["y"]["data"]),
                "uz": np.array(gp["momentum"]["z"]["data"])}
         return out
+    import h5py
     with h5py.File(path, "r") as f:
         gp = f[f"data/{it}/particles/{beam}"]
         for comp, key in (("position/x", "x"), ("position/y", "y"),

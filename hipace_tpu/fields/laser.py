@@ -1,6 +1,6 @@
 """Laser envelope solver (Benedetti 2017 / Wake-T scheme).
 
-TPU-native re-design of MultiLaser (ref: /root/reference/src/laser/
+A JAX re-design of MultiLaser (ref: src/laser/
 MultiLaser.{H,cpp}, Laser.{H,cpp}): the complex envelope A(x, y, zeta) is
 advanced one time step per slice by solving a 2D complex Helmholtz equation
 
@@ -188,7 +188,7 @@ def _shape1(mid):
 
 def _read_envelope_file(p, geom: Geometry, clight: float):
     """One pulse's from_file envelope on the laser grid interior
-    (nz, ny, nx complex) — the TPU rebuild of the reference's
+    (nz, ny, nx complex) — the rebuild of the reference's
     GetEnvelopeFromFile (ref Laser.cpp:119-330): openPMD/lasy layouts
     xyt (axes t,y,x), xyz (z,y,x) and rt (t,r with azimuthal modes),
     order-1 interpolation onto the simulation grid, unitSI scaling."""

@@ -1,6 +1,6 @@
 """Transverse mesh refinement (MR): nested fine levels in (x, y).
 
-TPU-native re-design of the reference's MR machinery:
+A JAX re-design of the reference's MR machinery:
 - per-level geometry:        /root/reference/src/Hipace.cpp:327-374
   (fine levels refine x/y only; z keeps the coarse dz, the patch z-range
   snaps to coarse slices and gives the per-slice current_N_level,
@@ -13,21 +13,29 @@ TPU-native re-design of the reference's MR machinery:
   nodes and absorbed into the RHS by the Van Loan correction
   (SetDirichletBoundaries, Fields.cpp:628-675)
 
-On TPU the coarse->fine evaluation at the *static* fine cell positions is a
+The coarse->fine evaluation at the *static* fine cell positions is a
 pair of small dense matrices applied per axis (separable order-2
-interpolation): F = Wy @ C @ Wx^T — an MXU-friendly matmul instead of a
-gather kernel.
+interpolation): F = Wy @ C @ Wx^T — a matmul instead of a gather kernel.
+Every product runs at Precision.HIGHEST (see _mm3).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..geometry import Geometry
 from ..parser import Inputs
+
+
+def _mm3(a, b, c):
+    """a @ b @ c in full f32 (or f64) precision: without an explicit
+    precision an f32 matmul may run as TF32 (~3 decimal digits)."""
+    hi = jax.lax.Precision.HIGHEST
+    return jnp.matmul(jnp.matmul(a, b, precision=hi), c, precision=hi)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +173,7 @@ class LevelCoupler:
     # ------------------------------------------------------------------
     def up_full(self, c):
         """LevelUp (ref Fields.cpp:808-838): full padded interpolation."""
-        return self.Wy @ c @ self.Wx.T
+        return _mm3(self.Wy, c, self.Wx.T)
 
     def _band(self, outer: int, inner: int):
         """Mask of fine padded cells in grown(valid, outer) \\ grown(valid,
@@ -198,10 +206,10 @@ class LevelCoupler:
         """Coarse solution at the 4 fine boundary edges (bot, top, left,
         right), each along the fine interior axis."""
         rxlo, rxhi, rylo, ryhi = self._bc_rows[offset]
-        bot = rylo @ c @ self.Wx_int.T     # (nxf,)
-        top = ryhi @ c @ self.Wx_int.T
-        left = self.Wy_int @ c @ rxlo      # (nyf,)
-        right = self.Wy_int @ c @ rxhi
+        bot = _mm3(rylo, c, self.Wx_int.T)     # (nxf,)
+        top = _mm3(ryhi, c, self.Wx_int.T)
+        left = _mm3(self.Wy_int, c, rxlo)      # (nyf,)
+        right = _mm3(self.Wy_int, c, rxhi)
         return bot, top, left, right
 
     def apply_bc(self, rhs, c, offset: float, factor: float):
@@ -259,7 +267,7 @@ class GridInterp:
             _cross_matrix_1d(yd, src, 1, NYs, order, valid_only), dtype)
 
     def apply(self, a):
-        return self.Wy @ a @ self.Wx.T
+        return _mm3(self.Wy, a, self.Wx.T)
 
 
 def in_level_bounds(x, y, geom: Geometry):

@@ -1,20 +1,16 @@
 """2D geometric multigrid for -a(x,y)*u + Laplacian(u) = rhs, Dirichlet BC.
 
-TPU-native re-design of the reference's hand-rolled hpmg::MultiGrid
+A JAX re-design of the reference's hand-rolled hpmg::MultiGrid
 (ref: /root/reference/src/mg_solver/HpMultiGrid.{H,cpp}), used for the
 explicit Bx/By solve (ref: Hipace.cpp:793-933) and the laser envelope
 (complex variant, ref: MultiLaser.cpp:430-607).
 
-Everything is expressed in TPU-friendly dense ops: red-black Gauss-Seidel
-with checkerboard masks, Laplacian boundary terms as precomputed coefficient
+Everything is expressed in dense array ops: red-black Gauss-Seidel with
+checkerboard masks, Laplacian boundary terms as precomputed coefficient
 arrays (no in-place edge updates), and grid transfer as SEPARABLE DENSE
-MATMULS on the MXU: the 2D restriction/prolongation stencils are outer
-products of 1D stencils, so `coarse = R_y @ r @ R_x^T` with banded
-(nc, nf) matrices, and bilinear prolongation is `P = 2 R^T` per dim.
-(Strided `lax.conv_general_dilated` — the previous design — lowers to a
-T(1,128)-layout conv emulation on TPU that measured 2.5 ms for a 4.7 MFLOP
-level-0 restriction at 1023^2, plus bf16 relayout copies; the dense matmul
-form runs the same transfer in ~0.03 ms and needs no relayout.)
+MATMULS: the 2D restriction/prolongation stencils are outer products of
+1D stencils, so `coarse = R_y @ r @ R_x^T` with banded (nc, nf) matrices,
+and bilinear prolongation is `P = 2 R^T` per dim.
 
 Two grid conventions, as in the reference (HpMultiGrid.cpp:1050-1065):
 
@@ -63,9 +59,10 @@ def _restrict_matrix_cc(nf: int) -> np.ndarray:
 
 
 def _mm(A, x, B):
-    """A @ x @ B^T over the trailing 2 dims of x, f32-exact on the MXU
-    (the transfer flops are trivial; HIGHEST costs nothing here).
-    Complex x goes through as two real passes."""
+    """A @ x @ B^T over the trailing 2 dims of x at Precision.HIGHEST
+    (the transfer flops are trivial, and a reduced-precision matmul would
+    cap the solver's attainable residual). Complex x goes through as two
+    real passes."""
     hi = jax.lax.Precision.HIGHEST
 
     def real_mm(xr):
@@ -148,17 +145,10 @@ class MultiGrid:
         self.acf_den = []
         rmat = _restrict_matrix_cc if self.cell_centered else \
             _restrict_matrix_nd
-        # numpy copies kept for FusedMG (ops/pallas_mg.py), which pads
-        # them host-side: under jit tracing jnp arrays are tracers and
-        # cannot round-trip through numpy
-        self.Ry_np = []
-        self.Rx_np = []
         for lev in range(self.nlevels - 1):
             n_y, n_x = self.shapes[lev]
             ry = rmat(n_y)
             rx = rmat(n_x)
-            self.Ry_np.append(ry)
-            self.Rx_np.append(rx)
             self.Ry.append(jnp.asarray(ry, rdt))
             self.Rx.append(jnp.asarray(rx, rdt))
             if not self.cell_centered:
@@ -237,42 +227,20 @@ class MultiGrid:
         return u
 
     # ------------------------------------------------------------------
-    def _fused(self, nchan: int):
-        from ..ops.pallas_mg import FusedMG
-        if not hasattr(self, "_fused_cache"):
-            self._fused_cache = {}
-        if nchan not in self._fused_cache:
-            self._fused_cache[nchan] = FusedMG(self, nchan)
-        return self._fused_cache[nchan]
-
     def solve(self, u0, rhs, acf, tol_rel=1e-4, tol_abs=0.0, max_iters=40,
-              nu1=2, nu2=2, fused=None):
+              nu1=2, nu2=2):
         """Solve Laplacian(u) - acf*u = rhs starting from u0.
 
         u0/rhs may have a leading batch axis ((2, ny, nx) for Bx,By with
         shared acf, as in hpmg solve1). acf is (ny, nx), scalar, or complex.
         lax.while_loop with max-norm convergence matching hpmg
-        (ref: HpMultiGrid.cpp:1308-1380).
+        (ref: HpMultiGrid.cpp:1308-1380)."""
+        return self.solve_info(u0, rhs, acf, tol_rel, tol_abs, max_iters,
+                               nu1, nu2)[0]
 
-        fused=None auto-selects the single-kernel Pallas solve
-        (ops/pallas_mg.py: whole V-cycle ladder VMEM-resident — the TPU
-        analogue of hpmg's fused shared-memory GSRB kernels) on TPU for
-        real node-centered systems; HIPACE_MG_FUSED=0/1 overrides. The
-        complex laser system and cell-centered grids keep this XLA path."""
-        if fused is None:
-            import os
-            env = os.environ.get("HIPACE_MG_FUSED", "")
-            fused = (jax.default_backend() == "tpu"
-                     and not self.cell_centered
-                     and not jnp.iscomplexobj(u0)
-                     and not jnp.iscomplexobj(jnp.asarray(acf))
-                     if env == "" else env not in ("0", "off", "false"))
-        if fused and not self.cell_centered and not jnp.iscomplexobj(u0):
-            nchan = u0.shape[0] if u0.ndim == 3 else 1
-            return self._fused(nchan).solve(
-                u0, rhs, acf, tol_rel=tol_rel, tol_abs=tol_abs,
-                max_iters=max_iters, nu1=nu1, nu2=nu2,
-                interpret=jax.default_backend() != "tpu")
+    def solve_info(self, u0, rhs, acf, tol_rel=1e-4, tol_abs=0.0,
+                   max_iters=40, nu1=2, nu2=2):
+        """solve() that also returns the number of V-cycles taken."""
         acfs = self._coarsen_acf(acf)
 
         res0 = rhs - self.apply_op(u0, acfs[0], 0)
@@ -293,4 +261,4 @@ class MultiGrid:
 
         u, resnorm, it = jax.lax.while_loop(
             cond, body, (u0, resnorm0, jnp.zeros((), jnp.int32)))
-        return u
+        return u, it

@@ -1,6 +1,6 @@
 """Open (free-space) transverse field boundaries via multipole expansion.
 
-TPU-native re-design of the reference's 18th-order Taylor expansion of the
+A JAX re-design of the reference's 18th-order Taylor expansion of the
 2D Green's function (ref: /root/reference/src/fields/OpenBoundary.H:34-52,
 Fields.cpp:685-760 SetOpenBoundaryCondition): the potential on the domain
 edge is

@@ -1,6 +1,6 @@
 """Transverse 2D Poisson solvers on slices, batched over components.
 
-TPU-native equivalents of the reference's FFT Poisson solver family
+JAX equivalents of the reference's FFT Poisson solver family
 (ref: /root/reference/src/fields/fft_poisson_solver/):
 
 - `DirichletPoissonSolver`: solves Laplacian(u) = rhs with homogeneous
@@ -33,19 +33,9 @@ from ..ops.dst import dst1_2d, dst1_2d_fast
 class DirichletPoissonSolver:
     """Batched DST-I Poisson solver for Laplacian(u) = rhs, u=0 at ghost nodes.
 
-    variant: "expanded" (odd extension + rfft of length 2(N+1), any N),
+    variant: "expanded" (odd extension + rfft of length 2(N+1), any N) or
     "fast" (same-size rfft with sine twiddles, needs odd N; the reference's
-    FFTDirichletFast and its GPU default), or "matmul" (the DST as two
-    dense sine-matrix products on the MXU — at production sizes the
-    1023^3-flop matmul beats XLA's TPU FFT by ~10x for a 3-channel batched
-    solve on v5e. Auto-selected by make_poisson_solver for f32 on TPU;
-    fp64/CPU keeps the FFT path). The matmul runs in bf16x3 (both operands
-    split hi+lo bf16, 3 MXU passes — the same f32-emulation trick as
-    ops/pallas_banded.py) which is ~2x the 6-pass HIGHEST mode. End-to-end
-    solve error vs fp64 is ~1.3e-5 relative (measured, 127^2) — the same
-    envelope as the bf16x3 deposits/gathers that source the RHS, and well
-    inside the explicit solver's own MG_tolerance_rel=1e-4 on Bx/By. The
-    constant sine matrices are pre-split at init."""
+    FFTDirichletFast and its GPU default)."""
 
     def __init__(self, nx: int, ny: int, dx: float, dy: float,
                  dtype=jnp.float32, variant: str = "expanded"):
@@ -53,34 +43,7 @@ class DirichletPoissonSolver:
         self.dx, self.dy = dx, dy
         if variant == "fast" and (nx % 2 == 0 or ny % 2 == 0):
             variant = "expanded"   # fast DST needs odd sizes
-        if variant == "matmul":
-            jx = np.arange(nx) + 1.0
-            jy = np.arange(ny) + 1.0
-            sx = np.sin(np.pi * jx[:, None] * jx[None, :] / (nx + 1))
-            sy = np.sin(np.pi * jy[:, None] * jy[None, :] / (ny + 1))
-            if dtype == jnp.float32:
-                # pre-split the constant sine matrices into bf16 hi+lo
-                # (pure numpy via ml_dtypes: __init__ may run under a jit
-                # trace, where np.asarray on a device array would fail)
-                import ml_dtypes
-                bf16 = ml_dtypes.bfloat16
-                sx32 = sx.astype(np.float32)
-                sy32 = sy.astype(np.float32)
-                sx_h = sx32.astype(bf16)
-                sy_h = sy32.astype(bf16)
-                self._sx_h = jnp.asarray(sx_h)
-                self._sy_h = jnp.asarray(sy_h)
-                self._sx_l = jnp.asarray(
-                    (sx32 - sx_h.astype(np.float32)).astype(bf16))
-                self._sy_l = jnp.asarray(
-                    (sy32 - sy_h.astype(np.float32)).astype(bf16))
-                self._dst2d = self._dst2d_matmul_bf16x3
-            else:
-                self._sx = jnp.asarray(sx, dtype)
-                self._sy = jnp.asarray(sy, dtype)
-                self._dst2d = self._dst2d_matmul
-        else:
-            self._dst2d = dst1_2d_fast if variant == "fast" else dst1_2d
+        self._dst2d = dst1_2d_fast if variant == "fast" else dst1_2d
         kx = np.arange(nx)
         ky = np.arange(ny)
         sinx2 = np.sin((kx + 1) * math.pi / (2 * (nx + 1))) ** 2
@@ -89,31 +52,6 @@ class DirichletPoissonSolver:
         # include inverse-DST normalization 4/((nx+1)(ny+1)) in the eigenvalue
         norm = 4.0 / ((nx + 1) * (ny + 1))
         self.inv_eig = jnp.asarray(norm / lam, dtype=dtype)  # (ny, nx)
-
-    def _dst2d_matmul(self, x: jnp.ndarray) -> jnp.ndarray:
-        """DST-I along the last two axes as Sy @ x @ Sx (S symmetric)."""
-        hi = jax.lax.Precision.HIGHEST
-        y = jnp.einsum("ij,...jk->...ik", self._sy, x, precision=hi)
-        return jnp.einsum("...ik,kl->...il", y, self._sx, precision=hi)
-
-    def _dst2d_matmul_bf16x3(self, x: jnp.ndarray) -> jnp.ndarray:
-        """bf16x3 f32-emulated DST matmul: S @ x with S pre-split hi+lo and
-        x split at runtime; the lo*lo term (~1e-13 rel) is dropped."""
-        def mm3(ah, al, b, left):
-            bh = b.astype(jnp.bfloat16)
-            bl = (b - bh.astype(jnp.float32)).astype(jnp.bfloat16)
-            if left:   # S @ x
-                d = lambda p, q: jnp.einsum(
-                    "ij,...jk->...ik", p, q,
-                    preferred_element_type=jnp.float32)
-                return d(ah, bh) + (d(ah, bl) + d(al, bh))
-            d = lambda p, q: jnp.einsum(
-                "...ik,kl->...il", p, q,
-                preferred_element_type=jnp.float32)
-            return d(bh, ah) + (d(bl, ah) + d(bh, al))
-
-        y = mm3(self._sy_h, self._sy_l, x, True)
-        return mm3(self._sx_h, self._sx_l, y, False)
 
     def solve(self, rhs: jnp.ndarray) -> jnp.ndarray:
         """Solve Laplacian(u) = rhs. rhs shape (..., ny, nx) -> u same shape."""

@@ -1,11 +1,12 @@
-"""Banded matmul particle kernels: deposition and gather on the MXU.
+"""Banded matmul particle kernels: deposition and gather as one-hot products.
 
-XLA's scatter/gather lowers random particle access to ~20 ns/element on TPU
-— 30x slower than everything else in the slice step. These kernels instead
-express deposition and interpolation as dense one-hot matrix products over
-*bands* of rows, the TPU-native equivalent of the reference's shared-memory
-tile deposition (ref: /root/reference/src/particles/deposition/
-DepositionUtil.H:40-120: sort by tile, accumulate in on-chip memory).
+The alternative to the per-particle scatter-add/gather of ops/deposit.py
+and ops/gather.py: deposition and interpolation are expressed as dense
+one-hot matrix products over *bands* of rows, a dense-matmul analogue of
+the reference's shared-memory tile deposition (ref: src/
+particles/deposition/DepositionUtil.H:40-120: sort by tile, accumulate in
+on-chip memory). Every f32 contraction is pinned to Precision.HIGHEST so
+that no backend lowers it to a reduced-precision (e.g. TF32) matmul.
 
 Particles must be pre-sorted by their current row (the caller sorts once
 per slice, which also plays the role of the reference's ReorderParticles).
@@ -19,18 +20,15 @@ an elementwise scatter/gather, so nothing is ever dropped (matching ref
 DepositionUtil/SliceSort, which never drop either) and the common case pays
 only one predicate evaluation.
 
-API contract (v5e-measured design): the kernels take guard-offset CELL
-POSITIONS (xm, ym — (pos - offset)/dcell + nguards, with invalid lanes
-set to a sentinel >= 2*NY) and compute the B-spline shape weights
-per chunk INSIDE the scan body, exactly like the reference's device
-kernels. Passing precomputed (N, m) weight arrays instead costs ~0.8 ms
-per array at 1M particles on v5e: XLA both relayouts them at the jit
-boundary and re-materializes them as scan operands, while in-body
-generation fuses into the one-hot build and never touches HBM.
+API contract: the kernels take guard-offset CELL POSITIONS (xm, ym —
+(pos - offset)/dcell + nguards, with invalid lanes set to a sentinel
+>= 2*NY) and compute the B-spline shape weights per chunk INSIDE the scan
+body, exactly like the reference's device kernels, so the weights fuse
+into the one-hot build instead of being materialized as (N, m) arrays.
 
-  deposit:  window(W*C, WX) += [Wy^T x values] (W*C, K) @ Wx (K, WX)  [MXU]
-  gather:   tmp = Wx (K, WX) @ window (WX, W*C)                       [MXU]
-            out[k, c] = sum_r Wy[k, r] * tmp[k, r, c]          [VPU reduce]
+  deposit:  window(W*C, WX) += [Wy^T x values] (W*C, K) @ Wx (K, WX)
+  gather:   tmp = Wx (K, WX) @ window (WX, W*C)
+            out[k, c] = sum_r Wy[k, r] * tmp[k, r, c]
 """
 
 from __future__ import annotations
@@ -45,39 +43,24 @@ from .shape import shape_weights, shape_weights_derivative
 
 
 class BandedOpts(NamedTuple):
-    """Backend + tuning for the banded particle kernels, passed through
-    the deposit/gather call sites (plasma.py / step.py).
-
-    backend "xla": ops/banded.py one-hot scan kernels (W, K, WX).
-    backend "pallas": ops/pallas_banded.py VMEM-resident kernels
-    (W, S, WXS, h, precision); requires the stripe-snake sort with
-    stripe height h.
-    """
-    backend: str = "xla"
+    """Window/chunk sizes for the banded particle kernels, passed through
+    the deposit/gather call sites (plasma.py / step.py): W-row windows,
+    K-particle chunks, WX-column windows (0 = full rows)."""
     W: int = 32
     K: int = 8192
     WX: int = 0
-    S: int = 512
-    WXS: int = 256
-    h: int = 8
-    precision: str = "bf16x3"
+
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 # ----------------------------------------------------------------------
-# backend dispatchers (value lists are stacked per-backend: channel-major
-# for pallas, channel-minor for the XLA one-hot kernels)
+# dispatchers (value lists are stacked channel-minor)
 # ----------------------------------------------------------------------
 def dispatch_deposit(fields, ym, xm, val_list, opts: BandedOpts, NY, NX,
                      order, deriv_type=-1, ykind="w", xkind="w"):
     """Deposit the per-particle value vectors into fields (C, NY, NX);
     returns (fields, lost)."""
-    if opts.backend == "pallas":
-        from .pallas_banded import pallas_deposit
-        return pallas_deposit(fields, ym, xm, jnp.stack(val_list),
-                              NY, NX, order, W=opts.W, S=opts.S,
-                              WXS=opts.WXS, h=opts.h, deriv_type=deriv_type,
-                              ykind=ykind, xkind=xkind,
-                              precision=opts.precision)
     return banded_deposit(fields, ym, xm, jnp.stack(val_list, axis=-1),
                           NY, NX, order, W=min(opts.W, NY), K=opts.K,
                           WX=opts.WX, deriv_type=deriv_type, ykind=ykind,
@@ -87,12 +70,6 @@ def dispatch_deposit(fields, ym, xm, val_list, opts: BandedOpts, NY, NX,
 def dispatch_deposit_multi(fields, ym, xm, val_list, ykinds,
                            opts: BandedOpts, NY, NX, order, deriv_type):
     """Multi-block deposit sharing one x weight matrix."""
-    if opts.backend == "pallas":
-        from .pallas_banded import pallas_deposit_multi
-        return pallas_deposit_multi(fields, ym, xm, jnp.stack(val_list),
-                                    ykinds, NY, NX, order, deriv_type,
-                                    W=opts.W, S=opts.S, WXS=opts.WXS,
-                                    h=opts.h, precision=opts.precision)
     return banded_deposit_multi(fields, ym, xm,
                                 jnp.stack(val_list, axis=-1), ykinds,
                                 NY, NX, order, deriv_type,
@@ -101,16 +78,9 @@ def dispatch_deposit_multi(fields, ym, xm, val_list, ykinds,
 
 def dispatch_deposit_blocks(fields, ym, xm, val_list, blocks,
                             opts: BandedOpts, NY, NX, order, deriv_type):
-    """Deposit channel blocks with per-block (ykind, xkind) weights.
-    On the pallas backend this is ONE fused kernel pass over the particle
-    positions; the XLA backend decomposes into a shared-x multi deposit
-    (xkind "w" blocks) plus one deposit per remaining block."""
-    if opts.backend == "pallas":
-        from .pallas_banded import pallas_deposit_blocks
-        return pallas_deposit_blocks(fields, ym, xm, jnp.stack(val_list),
-                                     blocks, NY, NX, order, deriv_type,
-                                     W=opts.W, S=opts.S, WXS=opts.WXS,
-                                     h=opts.h, precision=opts.precision)
+    """Deposit channel blocks with per-block (ykind, xkind) weights:
+    one shared-x multi deposit (xkind "w" blocks) plus one deposit per
+    remaining block."""
     lost = jnp.zeros((), jnp.int32)
     # group the xkind=="w" blocks into one shared-x multi deposit
     wk = [(i, yk, ci) for i, (yk, xk, ci) in enumerate(blocks)
@@ -154,11 +124,6 @@ def dispatch_gather_main(field_list, ym, xm, opts: BandedOpts, NY, NX,
                          order):
     """Fused main-fields gather; field_list = [Psi, Ez, Bx, By, Bz]
     slice arrays. Returns (exmby_raw, eypbx_raw, ez, bx, by, bz, lost)."""
-    if opts.backend == "pallas":
-        from .pallas_banded import pallas_gather_main
-        return pallas_gather_main(jnp.stack(field_list), ym, xm, NY, NX,
-                                  order, W=opts.W, S=opts.S, WXS=opts.WXS,
-                                  h=opts.h, precision=opts.precision)
     return banded_gather_main(jnp.stack(field_list, axis=-1), ym, xm,
                               NY, NX, order, W=min(opts.W, NY), K=opts.K,
                               WX=opts.WX)
@@ -280,7 +245,7 @@ def _scatter_deposit_chunk(acc, cym, cxm, cv, order, deriv_type,
     jx_raw = cix0[:, None, None] \
         + jnp.arange(mx, dtype=jnp.int32)[None, None, :]
     # taps outside the padded array are DROPPED, not clamped (same
-    # semantics as ops/deposit.py and the Pallas in-kernel x fallback);
+    # semantics as ops/deposit.py);
     # this also zeroes sentinel lanes (iy0 >= NYp)
     cwy = cwy * ((jy_raw >= 0) & (jy_raw < NYp))[:, :, 0]
     cwx = cwx * ((jx_raw >= 0) & (jx_raw < NXp))[:, 0, :]
@@ -336,7 +301,7 @@ def banded_deposit(fields, ym, xm, values, NY, NX, order, W=16, K=512,
         Wx = _onehot_w(relx, cwx, WX)                      # (K, WX)
         contrib = jax.lax.dot_general(
             WyVT, Wx, (((1,), (0,)), ((), ())),
-            preferred_element_type=acc.dtype)              # (W*C, WX)
+            precision=_HI, preferred_element_type=acc.dtype)  # (W*C, WX)
         contrib = contrib.reshape(W, C, WX)
         zero = jnp.zeros((), ay.dtype)
         win = jax.lax.dynamic_slice(acc, (zero, ay, ax), (C, W, WX))
@@ -409,7 +374,7 @@ def banded_gather(stack, ym, xm, NY, NX, order, W=16, K=512, WX=None):
         Wx = _onehot_w(relx, cwx, WX)                      # (K, WX)
         tmp = jax.lax.dot_general(
             Wx, winx, (((1,), (0,)), ((), ())),
-            preferred_element_type=win.dtype)              # (K, W*C)
+            precision=_HI, preferred_element_type=win.dtype)  # (K, W*C)
         return None, jnp.sum(Wy[:, :, None] * tmp.reshape(K, W, C), axis=1)
 
     _, outs = jax.lax.scan(body, None, (ymc, xmc))
@@ -447,7 +412,7 @@ def banded_deposit_multi(fields, ym, xm, values, ykinds, NY, NX, order,
                          deriv_type, W=16, K=512, WX=None):
     """Deposit several y-weight/value sets sharing ONE x one-hot.
 
-    The (K, WX) one-hot matrix is the per-chunk MXU cost of a banded
+    The (K, WX) one-hot matrix is the per-chunk matmul cost of a banded
     deposit; any deposits with the same x factors should share it.
     values is (N, sum C_i); ykinds a static tuple of (kind, C_i) with
     kind in {"w", "dw"} selecting the y factor per channel block; fields
@@ -487,7 +452,7 @@ def banded_deposit_multi(fields, ym, xm, values, ykinds, NY, NX, order,
         Wx = _onehot_w(relx, wxs, WX)                      # (K, WX)
         contrib = jax.lax.dot_general(
             WyVT, Wx, (((1,), (0,)), ((), ())),
-            preferred_element_type=acc.dtype)              # (W*C, WX)
+            precision=_HI, preferred_element_type=acc.dtype)  # (W*C, WX)
         # block rows are (W, C_i)-ordered; bring to (C, W, WX)
         parts = []
         off = 0
@@ -539,7 +504,7 @@ def banded_deposit_multi(fields, ym, xm, values, ykinds, NY, NX, order,
 
 @partial(jax.jit, static_argnames=("NY", "NX", "order", "W", "K", "WX"))
 def banded_gather_main(stack, ym, xm, NY, NX, order, W=16, K=512, WX=None):
-    """Fused main-fields gather on the MXU (banded variant of
+    """Fused main-fields gather as one-hot products (banded variant of
     gather_main_fields, ref FieldGather.H:45-97).
 
     stack: (NY, NX, 5) with channel 0 = Psi, 1..4 = Ez, Bx, By, Bz.
@@ -576,11 +541,12 @@ def banded_gather_main(stack, ym, xm, NY, NX, order, W=16, K=512, WX=None):
         dWx = _onehot_w(relx, cdwx, WX)
         tmp = jax.lax.dot_general(
             Wx, winx, (((1,), (0,)), ((), ())),
+            precision=_HI,
             preferred_element_type=win.dtype).reshape(K, W, 5)
         winx_psi = jnp.transpose(win[:, :, 0], (1, 0))      # (WX, W)
         tmp_dx = jax.lax.dot_general(
             dWx, winx_psi, (((1,), (0,)), ((), ())),
-            preferred_element_type=win.dtype)               # (K, W)
+            precision=_HI, preferred_element_type=win.dtype)  # (K, W)
         # the nodal derivative factors already carry the ExmBy = -dxPsi
         # sign convention (same as ops/gather.py gather_main_fields)
         exmby = jnp.sum(Wy * tmp_dx, axis=1)

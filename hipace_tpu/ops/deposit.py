@@ -1,14 +1,12 @@
 """Scatter-add particle deposition onto slice arrays.
 
-TPU-native equivalent of the reference's SharedMemoryDeposition engine
+JAX equivalent of the reference's SharedMemoryDeposition engine
 (ref: /root/reference/src/particles/deposition/DepositionUtil.H:40-120). The
 GPU reference builds per-tile linked lists and accumulates in shared memory
-with atomics; on TPU there are no fast global atomics, so we lower to XLA's
-scatter-add (`.at[].add`) over flattened (N * m * m) index/value arrays,
-which XLA implements with on-chip sorting. A bin-sorted Pallas
-segmented-reduction kernel is the planned fast path (same sort-by-cell
-strategy as the reference's tiles); this module is the portable baseline
-with the identical math.
+with atomics; here the deposit is XLA's scatter-add (`.at[].add`) over
+flattened (N * m * m) index/value arrays, which XLA lowers to atomic adds
+on the GPU — the reference's own global-atomics design without the
+shared-memory tiling.
 
 All deposits for one species are fused into a single scatter by stacking the
 deposited components along a leading axis.
@@ -37,7 +35,7 @@ def deposit_multi(fields_stack, xp, yp, values, geom, order):
     m = order + 1
     # stencil taps outside the padded array are DROPPED (zero weight), not
     # clamped: charge beyond the guard band never piles into the outermost
-    # guard cell. Matches the banded/Pallas kernels; only possible for
+    # guard cell. Matches the banded kernels; only possible for
     # out-of-domain beam lanes (plasma is BC-enforced in-domain and the
     # guard band covers its stencil reach).
     ii_raw = ix0[:, None] + jnp.arange(m, dtype=jnp.int32) + G

@@ -1,12 +1,12 @@
 """Discrete sine transforms (DST-I) built on XLA's batched FFT.
 
 The reference implements DST-I Poisson solves three ways (Direct/Expanded/
-Fast, ref: /root/reference/src/fields/fft_poisson_solver/). On TPU we use the
-odd-extension approach (the reference's "Expanded" variant,
+Fast, ref: src/fields/fft_poisson_solver/). Two are here:
+the odd-extension approach (the reference's "Expanded" variant,
 ref: FFTPoissonSolverDirichletExpanded.cpp): a DST-I of length N equals the
-imaginary part of a length-2(N+1) real FFT of the odd extension. For the
-recommended sizes N = 2^k - 1 the extension length is a power of two, the
-best case for the TPU FFT.
+imaginary part of a length-2(N+1) real FFT of the odd extension; and the
+same-size "Fast" variant (dst1_fast). For the recommended sizes
+N = 2^k - 1 both FFT lengths are powers of two.
 
 DST-I here is the plain sine sum (no normalization):
     X[k] = sum_{n=0}^{N-1} x[n] sin(pi (n+1)(k+1) / (N+1))

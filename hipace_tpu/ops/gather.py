@@ -1,6 +1,6 @@
 """Vectorized field gather onto particle arrays.
 
-TPU-native equivalent of doGatherShapeN
+JAX equivalent of doGatherShapeN
 (ref: /root/reference/src/particles/particles_utils/FieldGather.H:45-97):
 for each particle, interpolates Ez, Bx, By, Bz with the order-p shape and
 computes ExmBy = -dPsi/dx, EypBx = -dPsi/dy via the fused *nodal* derivative
@@ -49,8 +49,7 @@ def gather_fields(xp, yp, fields, comps, geom, order):
 def _row_sliced_fetch(stacked, jj, ix0, mcols):
     """Fetch (N, nrows, mcols, C) stencil values with ONE gather of
     (1, mcols, C) row-slices: nrows gather rows per particle instead of
-    nrows*mcols scalar elements (~4x fewer gather rows on TPU, where XLA
-    gather throughput is per-row). Out-of-range starts are slice-clipped;
+    nrows*mcols scalar elements. Out-of-range starts are slice-clipped;
     particles with in-bounds stencils (every valid particle — guard cells
     cover the stencil) read exactly the same elements as elementwise
     indexing."""

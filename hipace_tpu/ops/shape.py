@@ -1,6 +1,6 @@
 """Vectorized B-spline particle shape factors, orders 0-3.
 
-TPU-native equivalent of the reference's scalar shape-factor templates
+JAX equivalent of the reference's scalar shape-factor templates
 (ref: /root/reference/src/particles/particles_utils/ShapeFactors.H). The
 reference's order-p polynomials are the cardinal B-splines B_p evaluated at
 (x - cell); here we evaluate them branch-free on whole particle arrays and
@@ -65,8 +65,8 @@ def shape_weights(xmid: jnp.ndarray, p: int, transposed: bool = False):
     """Shape factors: returns (i0 (N,), w (N, p+1)) with w_k = B_p(x - (i0+k)).
 
     transposed=True returns w as (p+1, N) — generated elementwise in that
-    layout, so consumers that want tap-major weights (the banded MXU
-    kernels) avoid an XLA relayout copy (~0.8 ms per (1M, 3) array on v5e).
+    layout, so consumers that want tap-major weights avoid an XLA relayout
+    copy of the (N, p+1) array.
     """
     i0 = _leftmost(xmid, p)
     offs = jnp.arange(p + 1, dtype=jnp.int32)

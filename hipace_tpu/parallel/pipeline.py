@@ -1,6 +1,6 @@
 """Longitudinal pipeline parallelism over a jax.sharding.Mesh.
 
-TPU-native re-design of the reference's only distributed mechanism
+A JAX re-design of the reference's only distributed mechanism
 (ref: /root/reference/src/utils/MultiBuffer.{H,cpp}; Hipace.cpp:400-401):
 rank r computes time steps r, r+N, ... and streams pushed beam slices
 head-to-tail to rank r+1 through a ring of MPI_Isend/Irecv buffers.
@@ -37,7 +37,7 @@ def _bin_block_into(buf: dict, counters: jnp.ndarray, block: dict, geom,
     """Scatter a received particle block into the per-slice receive buffer.
 
     buf: dict of (nz, cap2) arrays; counters: (nz,) write cursors.
-    The TPU analogue of MultiBuffer's per-slice recv bookkeeping.
+    The analogue of MultiBuffer's per-slice recv bookkeeping.
     """
     nz = geom.nz
     isl = bm.slice_index(block["z"], geom)
@@ -75,7 +75,7 @@ def make_pipelined_evolve(cfg, dtype, n_devices: int, beam_cap: int,
     `ys` rows the serial driver stacks: legacy "diag", per-diag "diagf_*",
     in-situ moments, counters) into (nz, ...) buffers carried through the
     tick scan, and accepts per-device (dt, time) ladders + a base step —
-    the TPU analogue of the reference's per-rank staging FAB
+    the analogue of the reference's per-rank staging FAB
     (ref Hipace.cpp:691, Fields::Copy) and of physical time streaming
     through the MultiBuffer (ref MultiBuffer.cpp:618-644, Hipace.cpp:411).
 
@@ -123,14 +123,10 @@ def make_pipelined_evolve(cfg, dtype, n_devices: int, beam_cap: int,
         # neutralizing background; pre-sort + banded path exactly like the
         # serial driver (pipeline/simulation.py _time_step)
         from ..particles import plasma as pl
-        from ..pipeline.step import _banded_opts, _row_sort
+        from ..pipeline.step import _banded_opts, _row_sort, banded_stripe_h
         banded = _banded_opts(cfg)
         if banded is not None:
-            if banded.backend == "pallas":
-                stripe_h = cfg.pallas_h
-            else:
-                stripe_h = (max(1, (cfg.banded_W - 8) // 2)
-                            if cfg.banded_WX < g.slice_shape[1] else 0)
+            stripe_h = banded_stripe_h(cfg)
             static_ion = not any(pcf.can_ionize for pcf in cfg.plasmas)
             plasmas = [_row_sort(p, g, stripe_h, static_ion)
                        for p in plasmas]
@@ -222,7 +218,7 @@ def make_pipelined_evolve(cfg, dtype, n_devices: int, beam_cap: int,
                         else dtype)
                     for dg in int_diags}
                 merge_keys.append("diag_int")
-            # per-slice ys shapes -> (nz, ...) staging buffers (the TPU
+            # per-slice ys shapes -> (nz, ...) staging buffers (the
             # analogue of the reference's staging FArrayBox, Hipace.cpp:691)
             probe_keys = ["fields", "plasma", "slip", "dt", "time",
                           "min_uz", "beam_moments", "step"]

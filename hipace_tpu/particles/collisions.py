@@ -1,6 +1,6 @@
 """Binary Coulomb collisions (Perez et al., Phys. Plasmas 19, 083104 (2012)).
 
-TPU-native re-design of the reference's collision module
+A JAX re-design of the reference's collision module
 (ref: /root/reference/src/particles/collisions/CoulombCollision.{H,cpp},
 ElasticCollisionPerez.H, UpdateMomentumPerez.H, ComputeTemperature.H):
 the per-cell binning + Fisher-Yates shuffle becomes a sort by (cell, random)

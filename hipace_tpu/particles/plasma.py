@@ -1,6 +1,6 @@
 """Plasma particle species: fixed-capacity SoA arrays, zeta pusher, deposits.
 
-TPU-native re-design of the reference's plasma layer:
+A JAX re-design of the reference's plasma layer:
 - container & init:  /root/reference/src/particles/plasma/PlasmaParticleContainer{.cpp,Init.cpp}
 - zeta pusher:       /root/reference/src/particles/pusher/PlasmaParticleAdvance.cpp:29-305
                      and PushPlasmaParticles.H:39-75
@@ -593,7 +593,7 @@ def ionization_module(ion: dict, elec: dict, fields: dict, geom: Geometry,
 
 def _banded_main_gather(xp, yp, valid, fields, geom, order, banded,
                         lost_out=None):
-    """gather_main_fields via the banded MXU kernel (requires the caller to
+    """gather_main_fields via the banded one-hot kernel (requires the caller to
     keep particles approximately row-sorted; see ops/banded.py). Invalid
     lanes read zeros."""
     from ..ops.banded import dispatch_gather_main
@@ -624,7 +624,7 @@ def advance_plasma(p: dict, fields: dict, geom: Geometry, cfg: PlasmaConfig,
     (ref PlasmaParticleAdvance.cpp:29-305, leapfrog path).
 
     fields: dict with padded slice arrays Psi, Ez, Bx, By, Bz (+ aabs).
-    banded: None (XLA gather) or (W, K) to use the banded MXU gather on
+    banded: None (XLA gather) or (W, K) to use the banded one-hot gather on
     row-sorted particles. Returns the updated particle dict.
 
     fine_levels: tuple of (fields_dict, Geometry) for MR levels 1..N; tag is
@@ -782,7 +782,7 @@ def deposit_plasma(p: dict, stack_comps: list[str], fields: dict,
     stack_comps: subset of ["jx","jy","jz","rho","chi","rhomjz"] to deposit.
     fields: dict name->(NY,NX); modified copies are returned along with the
     per-particle QSA-violation mask applied to the weights.
-    banded: None (XLA scatter) or (W, K) for the banded MXU deposit on
+    banded: None (XLA scatter) or (W, K) for the banded one-hot deposit on
     row-sorted particles.
     extra_mask: additional per-particle deposit gate (MR: deposit on a fine
     level only particles tagged >= that level, ref
@@ -880,8 +880,8 @@ def fused_plasma_deposits(p: dict, stack_comps: list[str], fields: dict,
     """Main currents + explicit Sx/Sy coefficient channels in ONE banded
     deposit (banded fast path for deposit_plasma + explicit_deposition).
 
-    The x weight matrix dominates a banded deposit's cost (HBM traffic for
-    the XLA one-hot kernels, VPU build + MXU flops for the Pallas ones);
+    The x weight matrix dominates a banded deposit's cost (its build and
+    the device-memory traffic of the one-hot product);
     the type-`deriv_type` derivative shape weights generate the SAME
     matrix as the plain order-p weights (their extra taps are zero), so
     the main deposit, the Sy/Sx s-channels (d1) and the dwy-channels (d3)
@@ -1064,7 +1064,7 @@ def explicit_deposition(p: dict, fields: dict, geom: Geometry,
     banded: None (XLA scatter) or (W, K). The banded path factorizes the
     per-cell field dependence: Sy(cell) = sum_F F(cell) * D_s[coef_F] +
     D_sdx[..] + D_sdy[..], where D are standard separable deposits of
-    per-particle coefficient channels — each runs on the MXU.
+    per-particle coefficient channels — each a one-hot matmul.
     """
     clight = pc.c
     clight_inv = 1.0 / pc.c

@@ -1,6 +1,6 @@
 """SALAME beam loading: slice-by-slice Newton iteration on beam weights.
 
-TPU-native re-design of the reference's SALAME module (ref: /root/reference/
+A JAX re-design of the reference's SALAME module (ref:
 src/salame/Salame.{H,cpp}, invoked from Hipace.cpp:673-678): at step 0, on
 slices carrying a SALAME-flagged beam, the beam weight is iterated so that
 the wake's Ez is flattened to the target (Slicing Advanced Loading And

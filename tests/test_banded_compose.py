@@ -1,4 +1,4 @@
-"""Banded MXU kernels composed with ionization and the AB5 pusher.
+"""Banded one-hot kernels composed with ionization and the AB5 pusher.
 
 Round-1 restriction lifts (the reference composes its full option matrix
 freely, ref PlasmaDepositCurrent.cpp:96-121): the argsort row sort permutes

@@ -1,4 +1,4 @@
-"""End-to-end equivalence of the banded MXU particle path vs XLA scatter.
+"""End-to-end equivalence of the banded one-hot particle path vs scatter.
 
 Runs the same small blowout deck with hipace.use_banded = 0 and 1 (with a
 window covering the full grid so nothing can be dropped) and requires the
@@ -37,13 +37,10 @@ hipace.random_seed = 7
 """
 
 
-def _run(banded: bool, backend: str = "xla"):
+def _run(banded: bool):
     inputs = Inputs(DECK, overrides=[f"hipace.use_banded={int(banded)}",
-                                     "hipace.banded_W=4096"
-                                     if backend == "xla"
-                                     else "hipace.banded_W=32",
-                                     "hipace.banded_K=1024",
-                                     f"hipace.banded_backend={backend}"])
+                                     "hipace.banded_W=4096",
+                                     "hipace.banded_K=1024"])
     sim = Simulation(inputs)
     return sim.run_step(0)
 
@@ -75,9 +72,3 @@ def _compare(ref, ban):
 
 def test_banded_path_matches_scatter():
     _compare(_run(False), _run(True))
-
-
-def test_pallas_backend_matches_scatter():
-    """Full end-to-end step with the Pallas kernel backend (interpret mode
-    on CPU, fp64) against the XLA scatter path."""
-    _compare(_run(False), _run(True, backend="pallas"))

@@ -1,4 +1,4 @@
-"""Banded MXU kernels composed with mesh refinement.
+"""Banded one-hot kernels composed with mesh refinement.
 
 Level-0 deposits use the banded path while fine-patch deposits/gathers stay
 on the XLA scatter path; results must match the fully-unbanded run to

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import decks
 from hipace_tpu.particles import beam as bm
 
 
@@ -83,7 +84,7 @@ def _run_deck(buckets):
     from hipace_tpu.pipeline.simulation import Simulation
     import tempfile, os
     inputs = Inputs.from_file(
-        "/root/reference/examples/get_started/inputs_normalized",
+        decks.path("get_started/inputs_normalized"),
         overrides=["max_step=1", "amr.n_cell=32 32 24",
                    "beam.num_particles=4000",
                    f"hipace.beam_buckets={buckets}",
@@ -121,7 +122,7 @@ def test_bucketed_banded_end_to_end():
 
     def run(buckets):
         inputs = Inputs.from_file(
-            "/root/reference/examples/get_started/inputs_normalized",
+            decks.path("get_started/inputs_normalized"),
             overrides=["max_step=1", "amr.n_cell=32 32 24",
                        "beam.num_particles=4000",
                        f"hipace.beam_buckets={buckets}",

@@ -3,8 +3,9 @@
 hipace.beam_chunk processes beam lanes in dynamic-trip-count while_loop
 chunks (see particles/beam.py chunk_apply) so per-slice cost scales with
 the actual particle count instead of the peak-sized capacity. Default-off
-(loop dispatch overhead on RPC-tunneled backends); these tests pin exact
-equivalence with the unchunked path so the option stays sound.
+(occupancy buckets, hipace.beam_buckets, are the default mechanism); these
+tests pin exact equivalence with the unchunked path so the option stays
+sound.
 """
 
 import jax

@@ -48,7 +48,10 @@ def _sim(npart=1024, beam_extra=""):
 
 def test_default_banded_w_is_32_and_k_sized_for_it():
     sim = _sim()
-    # 256^2 * 1 ppc = 65536 -> banded auto-enables
+    # the scatter path is the default at every size (PERF.md: one-hot
+    # measured 12x slower on the H100)
+    assert not sim.cfg.use_banded
+    sim = _sim(beam_extra="hipace.use_banded = 1\n")
     assert sim.cfg.use_banded
     assert sim.cfg.banded_W == SimConfig.banded_W == 32
     # auto-K must have been sized for the SAME W: K <= (W-11)*nx and is
@@ -81,8 +84,8 @@ def test_do_symmetrize_requires_divisible_by_4():
 
 def test_sort_period_auto_default():
     """banded_sort_period=0 (the default) resolves to 2 without ionization
-    (measured 42.4 vs 38.6 slices/s at 1023^2 on v5e) and to 1 with an
-    ionizing species (append-mode spawning needs per-slice compaction).
+    and to 1 with an ionizing species (append-mode spawning needs
+    per-slice compaction).
     Exactness never depends on the period (corrective pass)."""
     sim = _sim()
     assert sim.cfg.banded_sort_period == 2

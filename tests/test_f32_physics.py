@@ -1,18 +1,18 @@
 """End-to-end f32 physics pin (VERDICT r4 weak-item 5).
 
-The production TPU path runs in f32 while every checksum test runs fp64;
+Production runs on the GPU in f32 while every checksum test runs fp64;
 this test runs one deterministic deck (blowout_wake, explicit solver,
 one full time step) in BOTH precisions on the CPU backend and asserts
 the f32 drift stays inside a measured bound — catching f32 regressions
 (catastrophic cancellation, accumulation-order changes, bad casts)
-without TPU hardware.
+without GPU hardware.
 
 Measured on 2026-08-20 (CPU, XLA): max relative deviation of the
 checksum sums f32 vs f64 is 1.8e-4 (Bz); all other fields < 1.2e-4 and
 the beam attributes < 1e-7. The bound below is ~5x that headroom. The
-same bound calibrates the on-TPU gate's tolerances (tools/tpu_check.py):
-f32 physics drift is ~2e-4, so TPU-vs-reference deviations beyond ~1e-3
-indicate a real numerics bug, not precision.
+same bound is the on-GPU gate's (chip_smoke.py phase 4): f32 physics
+drift is ~2e-4, so f32-vs-f64 deviations beyond ~1e-3 indicate a real
+numerics bug, not precision.
 
 Reference criterion analogue: the reference CI compares CUDA (often
 single-precision builds) against fp64-computed benchmarks with per-test
@@ -25,17 +25,18 @@ import h5py
 import jax.numpy as jnp
 import numpy as np
 
+import decks
+
 from hipace_tpu.parser import Inputs
 from hipace_tpu.pipeline.simulation import Simulation
 
-REF = "/root/reference"
 
 F32_BOUND = 1e-3  # ~5x the measured 1.8e-4 worst-case (Bz)
 
 
 def _run(dtype, prefix):
     inputs = Inputs.from_file(
-        f"{REF}/examples/blowout_wake/inputs_normalized",
+        decks.path("blowout_wake/inputs_normalized"),
         overrides=["max_step=1", f"hipace.file_prefix={prefix}"])
     sim = Simulation(inputs, dtype=dtype, verbose=0)
     sim.evolve()

@@ -15,10 +15,10 @@ import re
 
 import pytest
 
+import decks
 from hipace_tpu.parser import Inputs
 from hipace_tpu.pipeline.simulation import Simulation
 
-REF = "/root/reference"
 DOC = os.path.join(os.path.dirname(__file__), "..", "docs", "parameters.md")
 
 TINY = ["amr.n_cell=16 16 8", "max_step=0", "diagnostic.output_period=0"]
@@ -98,15 +98,15 @@ diagnostic.output_period = 0
 """
 
 DECKS = [
-    (f"{REF}/examples/get_started/inputs_pwfa", TINY),
-    (f"{REF}/examples/get_started/inputs_lwfa", TINY),
-    (f"{REF}/examples/blowout_wake/inputs_normalized",
+    (decks.path("get_started/inputs_pwfa"), TINY),
+    (decks.path("get_started/inputs_lwfa"), TINY),
+    (decks.path("blowout_wake/inputs_normalized"),
      TINY + ["hipace.bxby_solver=predictor-corrector"]),
-    (f"{REF}/examples/beam_in_vacuum/inputs_normalized",
+    (decks.path("beam_in_vacuum/inputs_normalized"),
      TINY + ["boundary.field=Open", "beam.injection_type=fixed_ppc",
              "beam.ppc=1 1 1", "beam.profile=flattop",
              "hipace.use_banded=0"]),
-    (f"{REF}/examples/laser/inputs_SI", TINY),
+    (decks.path("laser/inputs_SI"), TINY),
     (FULL_FEATURE_DECK, []),
 ]
 

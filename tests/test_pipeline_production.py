@@ -19,10 +19,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
+import decks
 from hipace_tpu.parser import Inputs
 from hipace_tpu.pipeline.simulation import Simulation
-
-REF = "/root/reference"
 
 OVR = [
     "max_step=3", "amr.n_cell=16 16 32", "beam.num_particles=2000",
@@ -33,7 +32,7 @@ OVR = [
 def _run(tmp_path, tag, pipelined, n_dev):
     prefix = str(tmp_path / tag)
     inputs = Inputs.from_file(
-        f"{REF}/examples/get_started/inputs_normalized",
+        decks.path("get_started/inputs_normalized"),
         overrides=OVR + [f"hipace.file_prefix={prefix}",
                          "beams.insitu_period=1",
                          f"beam.insitu_file_prefix={prefix}_insitu"])
@@ -91,7 +90,7 @@ def test_production_tail_serial_fallback(tmp_path):
     assert len(jax.devices()) >= 2
     prefix = str(tmp_path / "tail")
     inputs = Inputs.from_file(
-        f"{REF}/examples/get_started/inputs_normalized",
+        decks.path("get_started/inputs_normalized"),
         overrides=["max_step=2", "amr.n_cell=16 16 32",
                    "beam.num_particles=1000", "diagnostic.output_period=1",
                    f"hipace.file_prefix={prefix}"])

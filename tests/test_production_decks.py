@@ -9,11 +9,12 @@ my_constants chains with predefined physics constants).
 import numpy as np
 import pytest
 
+import decks
 from hipace_tpu.parser import Inputs
 from hipace_tpu.pipeline.simulation import Simulation
 
-PWFA = "/root/reference/examples/get_started/inputs_pwfa"
-LWFA = "/root/reference/examples/get_started/inputs_lwfa"
+PWFA = decks.path("get_started/inputs_pwfa")
+LWFA = decks.path("get_started/inputs_lwfa")
 
 
 def test_pwfa_deck(tmp_path):

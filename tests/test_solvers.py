@@ -53,28 +53,73 @@ def test_dirichlet_poisson_batched():
             _fd_laplacian_dirichlet(u[b], 0.5, 0.5), rhs[b], rtol=1e-8, atol=1e-8)
 
 
-def test_dirichlet_poisson_matmul_bf16x3():
-    """The TPU production path (variant="matmul", f32) runs the DST as
-    pre-split bf16x3 sine matmuls; pin its solve error vs the f64 FFT
-    path (measured ~1.3e-5 relative at 127^2 — the same f32-emulation
-    envelope as ops/pallas_banded.py)."""
+@pytest.mark.parametrize("dtype,tol", [(jnp.float64, 1e-10),
+                                       (jnp.float32, 5e-5)],
+                         ids=["f64", "f32"])
+def test_dirichlet_poisson_fast_matches_expanded(dtype, tol):
+    """The reference's FFTDirichletFast variant (same-size rfft with sine
+    twiddles) against the f64 odd-extension solve, 3-channel batched as in
+    the Psi/Ez/Bz solve. The f32 bound is the f32 FFT roundoff envelope."""
     ny = nx = 127
     dx, dy = 0.1, 0.1
     rng = np.random.default_rng(7)
     rhs = rng.standard_normal((3, ny, nx))
-    ref = DirichletPoissonSolver(nx, ny, dx, dy, dtype=jnp.float64).solve(
-        jnp.asarray(rhs))
-    mm = DirichletPoissonSolver(nx, ny, dx, dy, dtype=jnp.float32,
-                                variant="matmul")
-    u = mm.solve(jnp.asarray(rhs, jnp.float32))
-    err = float(jnp.max(jnp.abs(u - ref.astype(jnp.float32)))
-                / jnp.max(jnp.abs(ref)))
-    assert err < 5e-5, err
-    # f64 matmul keeps the exact einsum path
-    mm64 = DirichletPoissonSolver(nx, ny, dx, dy, dtype=jnp.float64,
-                                  variant="matmul")
-    u64 = mm64.solve(jnp.asarray(rhs))
-    np.testing.assert_allclose(np.asarray(u64), np.asarray(ref), rtol=1e-9)
+    ref = DirichletPoissonSolver(nx, ny, dx, dy, dtype=jnp.float64,
+                                 variant="expanded").solve(jnp.asarray(rhs))
+    fast = DirichletPoissonSolver(nx, ny, dx, dy, dtype=dtype,
+                                  variant="fast")
+    u = fast.solve(jnp.asarray(rhs, dtype))
+    err = float(jnp.max(jnp.abs(u - ref)) / jnp.max(jnp.abs(ref)))
+    assert err < tol, err
+
+
+@pytest.mark.parametrize("ny,nx,nchan", [(31, 31, 2), (63, 31, 1),
+                                         (15, 127, 2)])
+def test_multigrid_matches_dst(ny, nx, nchan):
+    """acf = 0: the V-cycle solve converges to the DST solution (both use
+    the ghost-node Dirichlet convention on odd grids)."""
+    rng = np.random.default_rng(ny + nx + nchan)
+    rhs = jnp.asarray(rng.standard_normal((nchan, ny, nx)))
+    mg = MultiGrid(nx, ny, 0.05, 0.07, jnp.float64)
+    u = mg.solve(jnp.zeros_like(rhs), rhs, 0.0, tol_rel=1e-11,
+                 max_iters=100)
+    ref = DirichletPoissonSolver(nx, ny, 0.05, 0.07,
+                                 dtype=jnp.float64).solve(rhs)
+    np.testing.assert_allclose(np.asarray(u), np.asarray(ref), rtol=1e-7,
+                               atol=1e-9 * float(jnp.max(jnp.abs(ref))))
+
+
+def test_multigrid_constant_acf_matches_helmholtz():
+    """Constant a-coefficient: MG solve of Lap(u) - a u = rhs against the
+    spectral Helmholtz solve."""
+    ny = nx = 31
+    rng = np.random.default_rng(11)
+    rhs = jnp.asarray(rng.standard_normal((ny, nx)))
+    mg = MultiGrid(nx, ny, 0.1, 0.1, jnp.float64)
+    u = mg.solve(jnp.zeros_like(rhs), rhs, 2.5, tol_rel=1e-11,
+                 max_iters=100)
+    ref = DirichletPoissonSolver(nx, ny, 0.1, 0.1,
+                                 dtype=jnp.float64).solve_helmholtz(rhs, 2.5)
+    np.testing.assert_allclose(np.asarray(u), np.asarray(ref), rtol=1e-7,
+                               atol=1e-9 * float(jnp.max(jnp.abs(ref))))
+
+
+def test_multigrid_solve_info_counts_vcycles():
+    """solve_info returns solve()'s answer and the V-cycle count: tighter
+    tolerances take more cycles, and the count stops at max_iters."""
+    ny = nx = 63
+    rng = np.random.default_rng(5)
+    rhs = jnp.asarray(rng.standard_normal((2, ny, nx)))
+    acf = jnp.asarray(np.abs(rng.standard_normal((ny, nx))))
+    mg = MultiGrid(nx, ny, 0.05, 0.05, jnp.float64)
+    u0 = jnp.zeros_like(rhs)
+    u, n_loose = mg.solve_info(u0, rhs, acf, tol_rel=1e-4)
+    np.testing.assert_array_equal(np.asarray(u),
+                                  np.asarray(mg.solve(u0, rhs, acf)))
+    _, n_tight = mg.solve_info(u0, rhs, acf, tol_rel=1e-10)
+    _, n_cap = mg.solve_info(u0, rhs, acf, tol_rel=1e-14, max_iters=3)
+    assert 1 <= int(n_loose) < int(n_tight) <= 40
+    assert int(n_cap) == 3
 
 
 def test_periodic_poisson():

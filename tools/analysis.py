@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Quick-look analysis of hipace_tpu openPMD output.
 
-TPU-native stand-in for the reference's openPMD-viewer based
-tools/analysis.py (ref /root/reference/tools/analysis.py): prints field
+A stand-in for the reference's openPMD-viewer based tools/analysis.py
+(ref tools/analysis.py): prints field
 statistics and on-axis lineouts, and (with --plot) writes a png.
 
 Usage:

@@ -2,20 +2,19 @@
 """Attribute device-trace op names (fusion.N ...) to Python source.
 
 `tools/trace_summary.py` groups device time by the `source` arg of each
-trace event, but big XLA fusions often carry no source there — round-5's
-1023^2 capture left 87% of device time in the '?' bucket with `fusion.27`
-alone at 27%. This tool closes that gap: it compiles the SAME bench step,
+trace event, but big XLA fusions often carry no source there. This tool
+closes that gap: it compiles the SAME bench step,
 dumps the compiled HLO (which records op_name/source_file/source_line
 metadata per fused instruction), and prints, for each requested op name,
 the fused computation's source-line histogram weighted by instruction
 output bytes (a static cost proxy).
 
-The TPU analogue of reading the reference's nvprof kernel names back to
+The analogue of reading the reference's nvprof kernel names back to
 TinyProfiler regions (ref utils/HipaceProfilerWrapper.H).
 
 Usage (shapes/env as bench.py):
   python tools/hlo_attr.py fusion.27 fusion.1      # attribute these ops
-  python tools/hlo_attr.py --dump /tmp/hlo.txt     # just dump HLO text
+  python tools/hlo_attr.py --dump hlo.txt          # just dump HLO text
 """
 
 from __future__ import annotations
@@ -110,6 +109,8 @@ def attribute(op2comp, comp_lines, op: str, top: int = 12,
 def compiled_text():
     import jax
     import jax.numpy as jnp  # noqa: F401
+
+    import decks
     from hipace_tpu.parser import Inputs
     from hipace_tpu.pipeline.simulation import Simulation
 
@@ -119,11 +120,11 @@ def compiled_text():
                                max(1024, int(nxy * nxy * 10 * nz / 1000))))
     extra = os.environ.get("HIPACE_BENCH_OVERRIDES", "")
     inputs = Inputs.from_file(
-        "/root/reference/examples/benchmarks/inputs_transverse_benchmark",
+        decks.path("transverse_benchmark"),
         overrides=[
             f"my_constants.nxy={nxy}", f"amr.n_cell={nxy} {nxy} {nz}",
             f"beam.num_particles={npart}", "max_step=0", "hipace.dt=1.0",
-            "diagnostic.output_period=0",
+            "diagnostic.output_period=0", "hipace.openpmd_backend=json",
         ] + ([o for o in extra.split(";") if o] if extra else []))
     sim = Simulation(inputs, verbose=0)
     lowered = sim._step_fn.lower(

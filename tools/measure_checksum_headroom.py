@@ -6,7 +6,8 @@ honoring the case's skips and the noise floors). Used to pin each case's
 rtol at its measured headroom (VERDICT r2 item 6; the reference CI uses
 5e-6 for production decks, tests/production.SI.2Rank.sh:25-29).
 
-Usage: python tools/measure_checksum_headroom.py [case-substring ...]
+Usage (HIPACE_REFERENCE_DIR = a HiPACE++ checkout):
+    python tools/measure_checksum_headroom.py [case-substring ...]
 Prints one JSON line per case: {"case": ..., "max_rel": ..., "argmax": ...}
 """
 
@@ -32,12 +33,13 @@ def measure(case, tmpdir):
     import h5py
     from hipace_tpu.parser import Inputs
     from hipace_tpu.pipeline.simulation import Simulation
-    from test_checksums import BENCH, BEAM_MAP, ABS_NOISE, _find_field
+    from test_checksums import BENCH, BEAM_MAP, ABS_NOISE, REF, _find_field
 
     name, deck, overrides, rtol, skip_fields, skip_particles = case
     bench = json.load(open(f"{BENCH}/{name}.json"))
     prefix = os.path.join(tmpdir, name.replace("/", "_"))
-    inputs = Inputs.from_file(deck, overrides=list(overrides)
+    inputs = Inputs.from_file(os.path.join(REF, "examples", deck),
+                              overrides=list(overrides)
                               + [f"hipace.file_prefix={prefix}"])
     sim = Simulation(inputs, verbose=0)
     sim.evolve()

@@ -2,10 +2,10 @@
 """Per-op profile of the bench slice step on the current jax backend.
 
 Runs one benchmark step under jax.profiler.trace and prints the top ops by
-total device time from the captured Chrome-trace JSON — the TPU analogue of
+total device time from the captured Chrome-trace JSON — the analogue of
 the reference's TinyProfiler tables (ref utils/HipaceProfilerWrapper.H).
 
-Usage: python tools/trace_summary.py [trace_dir]
+Usage: python tools/trace_summary.py [trace_dir]   (default traces/slice)
 Env: HIPACE_BENCH_NXY/NZ/NPART/HIPACE_BENCH_OVERRIDES as bench.py.
 """
 
@@ -28,13 +28,13 @@ def summarize(trace_dir: str, top: int = 40):
     with gzip.open(files[-1], "rt") as f:
         doc = json.load(f)
     events = doc.get("traceEvents", [])
-    # device-side complete events: pid names containing "TPU"/"Device"
+    # device-side complete events: pid names naming a GPU or device
     pid_names = {}
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             pid_names[e["pid"]] = e["args"].get("name", "")
     dev_pids = {p for p, n in pid_names.items()
-                if "TPU" in n or "Device" in n or "/device:" in n}
+                if "GPU" in n or "Device" in n or "/device:" in n}
     # self time: subtract directly-nested child events (per pid/tid lane)
     lanes = defaultdict(list)
     for e in events:
@@ -79,10 +79,12 @@ def summarize(trace_dir: str, top: int = 40):
 
 
 def main():
-    trace_dir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/htpu_trace"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    trace_dir = (sys.argv[1] if len(sys.argv) > 1
+                 else os.path.join(repo, "traces", "slice"))
     import jax
-    import jax.numpy as jnp
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    sys.path.insert(0, repo)
+    import decks
 
     nxy = int(os.environ.get("HIPACE_BENCH_NXY", "1023"))
     nz = int(os.environ.get("HIPACE_BENCH_NZ", "32"))
@@ -93,19 +95,19 @@ def main():
     from hipace_tpu.parser import Inputs
     from hipace_tpu.pipeline.simulation import Simulation
     inputs = Inputs.from_file(
-        "/root/reference/examples/benchmarks/inputs_transverse_benchmark",
+        decks.path("transverse_benchmark"),
         overrides=[
             f"my_constants.nxy={nxy}", f"amr.n_cell={nxy} {nxy} {nz}",
             f"beam.num_particles={npart}", "max_step=0", "hipace.dt=1.0",
-            "diagnostic.output_period=0",
+            "diagnostic.output_period=0", "hipace.openpmd_backend=json",
         ] + ([o for o in extra.split(";") if o] if extra else []))
     sim = Simulation(inputs, verbose=0)
     res = sim.run_step(0)            # compile + warmup
-    float(jnp.sum(res["binned"]["x"]))
+    jax.block_until_ready(res["binned"])
     with jax.profiler.trace(trace_dir):
         sim.binned = res["binned"]
         res = sim.run_step(1)
-        float(jnp.sum(res["binned"]["x"]))
+        jax.block_until_ready(res["binned"])
     summarize(trace_dir)
     return 0
 
